@@ -30,21 +30,15 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from zig_tfhe_tpu import key as K  # noqa: E402
-from zig_tfhe_tpu import params as P  # noqa: E402
-from zig_tfhe_tpu.models import integer as I  # noqa: E402
+from zig_tfhe_jax import key as K  # noqa: E402
+from zig_tfhe_jax import params as P  # noqa: E402
+from zig_tfhe_jax.models import integer as I  # noqa: E402
 
 
-def _sync(x):
-    # tiny-slice readback: full execution is forced without the multi-MB
-    # device->host transfer of the whole result
-    np.asarray(x[(slice(0, 1),) * x.ndim])
-    return x
+_sync = jax.block_until_ready
 
 
 def main():
@@ -64,7 +58,7 @@ def main():
         os.environ.get("BENCH_PACKING", "1") in ("1", "true")
     ck = K.CloudKey.generate(jax.random.key(1), sk, params,
                              packing_key=packing)
-    np.asarray(jax.tree_util.tree_leaves(ck)[1].ravel()[:1])
+    jax.block_until_ready(ck)
     print(f"# keygen (cold, incl jit compile): {time.time()-t0:.1f}s",
           file=sys.stderr)
 

@@ -7,8 +7,8 @@ scaling efficiency.  Gate evaluation is embarrassingly parallel over the
 batch, so the expected efficiency is ~1.0: the only cross-device traffic
 is the initial key broadcast.
 
-On this box multi-chip TPU hardware is unavailable; validate the sharded
-path on a virtual CPU mesh (NOTE: virtual devices share the same physical
+Without several accelerators, validate the sharded path on a virtual CPU
+mesh (NOTE: virtual devices share the same physical
 cores, so "efficiency" there only validates correctness, not scaling —
 gate evaluation has no cross-device traffic, so real-hardware efficiency
 tracks ~1.0):
@@ -27,29 +27,25 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# persistent compilation cache: repeat runs skip the (remote, slow) compiles
+# persistent compilation cache: repeat runs skip the compiles
 os.environ.setdefault(
     "JAX_COMPILATION_CACHE_DIR",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache"))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.parallel import mesh as M
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.parallel import mesh as M
 
 
-def _sync(x):
-    np.asarray(jax.tree_util.tree_leaves(x)[0])[..., :1]
-    return x
+_sync = jax.block_until_ready
 
 
 def throughput(mesh, ck, sk, params, B, iters):

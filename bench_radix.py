@@ -30,15 +30,13 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu.models import lut as L
-from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax.models import lut as L
+from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
 
 def main():
@@ -61,7 +59,7 @@ def main():
     # reuse it instead of building a second 200+ MB bank
     pksk = (ck.pksk if ck.pksk is not None
             else gen_packing_ksk(jax.random.key(2), sk.key_lv1, params))
-    np.asarray(jax.tree_util.tree_leaves(ck)[1].ravel()[:1])
+    jax.block_until_ready((ck, pksk))
     print(f"# keygen+pksk: {time.time()-t0:.1f}s", file=sys.stderr)
 
     rng = np.random.default_rng(0)
@@ -73,9 +71,7 @@ def main():
     run = jax.jit(lambda lo, hi, ck, pksk: L.bootstrap_lut_radix(
         lo, hi, f, m, ck, pksk))
 
-    def _sync(o):
-        np.asarray(o[0][..., 0])
-        return o
+    _sync = jax.block_until_ready
 
     t0 = time.time()
     out = _sync(run(*cts, ck, pksk))

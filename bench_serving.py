@@ -5,7 +5,7 @@ Schedules a 16-bit ripple-carry adder once (native C++ scheduler), then
 evaluates it over a batch of B independent client input pairs in one
 arena pass — every level's gates fuse across the batch, so per-client
 cost rides the batched-bootstrap throughput curve instead of the
-circuit's own width (docs/ROADMAP.md serving lever).
+circuit's own width.
 
 Reference point: the reference evaluates ONE 16-bit addition in 2985 ms
 (CHANGELOG.md:87), strictly sequentially.
@@ -28,16 +28,14 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from zig_tfhe_tpu import key as K  # noqa: E402
-from zig_tfhe_tpu import params as P  # noqa: E402
-from zig_tfhe_tpu import tlwe  # noqa: E402
-from zig_tfhe_tpu.models import scheduler as S  # noqa: E402
+from zig_tfhe_jax import key as K  # noqa: E402
+from zig_tfhe_jax import params as P  # noqa: E402
+from zig_tfhe_jax import tlwe  # noqa: E402
+from zig_tfhe_jax.models import scheduler as S  # noqa: E402
 
 BITS = 16
 
@@ -76,7 +74,7 @@ def main():
 
     sk = K.SecretKey.generate(jax.random.key(0), params)
     ck = K.CloudKey.generate(jax.random.key(1), sk, params)
-    np.asarray(jax.tree_util.tree_leaves(ck)[1].ravel()[:1])
+    jax.block_until_ready(ck)
 
     rng = np.random.default_rng(0)
     av = rng.integers(0, 1 << BITS, B)
@@ -90,9 +88,7 @@ def main():
 
     run = jax.jit(lambda c, k: S.evaluate(plan, c, k))
 
-    def _sync(x):
-        np.asarray(x[..., 0])     # readback is the only reliable fence
-        return x
+    _sync = jax.block_until_ready
 
     t0 = time.time()
     out = _sync(run(cts, ck))

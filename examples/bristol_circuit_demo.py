@@ -28,10 +28,10 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from zig_tfhe_tpu import key as K  # noqa: E402
-from zig_tfhe_tpu import params as P  # noqa: E402
-from zig_tfhe_tpu import tlwe  # noqa: E402
-from zig_tfhe_tpu.models import scheduler as S  # noqa: E402
+from zig_tfhe_jax import key as K  # noqa: E402
+from zig_tfhe_jax import params as P  # noqa: E402
+from zig_tfhe_jax import tlwe  # noqa: E402
+from zig_tfhe_jax.models import scheduler as S  # noqa: E402
 
 
 def bristol_adder(nbits: int) -> str:
@@ -73,11 +73,11 @@ def bristol_adder(nbits: int) -> str:
 def main():
     # DEMO_MULT=w evaluates the scheduler-scale Wallace-tree multiplier
     # netlist instead (models/netlists.py; w=64 is the ~27k-gate corpus
-    # circuit — run it on TPU via bench_circuit.py; w=8 is a ~1 min CPU
+    # circuit — run it on the GPU via bench_circuit.py; w=8 is a ~1 min CPU
     # demo).  Default: the 8-bit adder below.
     mult_w = int(os.environ.get("DEMO_MULT", "0"))
     if mult_w:
-        from zig_tfhe_tpu.models.netlists import bristol_multiplier
+        from zig_tfhe_jax.models.netlists import bristol_multiplier
 
         a_val, b_val = 202 % (1 << mult_w), 142 % (1 << mult_w)
         params = P.TEST_TINY

@@ -23,12 +23,10 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
-from zig_tfhe_tpu import key as K  # noqa: E402
-from zig_tfhe_tpu import params as P  # noqa: E402
-from zig_tfhe_tpu.models.integer import FheUint  # noqa: E402
+from zig_tfhe_jax import key as K  # noqa: E402
+from zig_tfhe_jax import params as P  # noqa: E402
+from zig_tfhe_jax.models.integer import FheUint  # noqa: E402
 
 
 def main():

@@ -15,8 +15,8 @@ the N=2048 / 64-bit-torus set `SECURITY_128_BIT_T64` (estimator-pinned
 139/137 gate-model bits), the per-hypothesis tables evaluate through
 ||q||_1-routed mid rotations, the candidates pack into one testvec via
 the int64 packing key switch, and one select rotation over the hi digit
-finishes the job.  Measured on TPU: m=64 at 124.7 evals/s and m=256 at
-21.9 evals/s, BOTH at accuracy 1.0 under real noise.
+finishes the job.  Measured at m=64 and m=256: accuracy 1.0 under real
+noise.
 
 Usage:
   python examples/secure_wide_lut_demo.py [--params tiny_split|128bit_t64]
@@ -39,15 +39,13 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)      # int64 carriers
 
 import numpy as np
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu.models import lut as L
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax.models import lut as L
 
 
 def main():

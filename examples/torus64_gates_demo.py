@@ -32,18 +32,16 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)      # int64 carriers
 
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.ops.ntt import default_group
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.ops.ntt import default_group
 
 
 def main():
@@ -80,7 +78,7 @@ def main():
 
     # the integer layer rides the same engine (multi-value bootstraps
     # included): encrypted arithmetic on the 64-bit variant
-    from zig_tfhe_tpu.models.integer import FheUint, decrypt_radix
+    from zig_tfhe_jax.models.integer import FheUint, decrypt_radix
     xi = FheUint.encrypt(jax.random.key(5), 45, 2, sk, ck)
     yi = FheUint.encrypt(jax.random.key(6), 23, 2, sk, ck)
     prod = decrypt_radix((xi * yi).digits, sk.key_lv0)

@@ -1,22 +1,25 @@
 // Circuit graph builder + level scheduler + wire-slot allocator.
 //
-// The TPU runtime evaluates boolean circuits as a sequence of LEVELS, each a
+// The runtime evaluates boolean circuits as a sequence of LEVELS, each a
 // single batched bootstrap over all gates whose inputs are ready.  Wide
-// levels = high MXU utilization, so the scheduler's job is (1) ASAP
+// levels = wide batched matmuls, so the scheduler's job is (1) ASAP
 // topological leveling of the gate DAG, (2) liveness-based wire-slot reuse
 // so the Python side can evaluate with a fixed int32[n_slots, n+1] arena
 // instead of per-wire allocations.
 //
 // The reference has no analog (it evaluates circuits strictly sequentially,
-// examples/add_two_numbers.zig:66-70); this is new TPU-native runtime.
+// examples/add_two_numbers.zig:66-70); this is new batched runtime.
 //
-// Exposed as a C ABI for ctypes (zig_tfhe_tpu/models/scheduler.py) and as a
+// Exposed as a C ABI for ctypes (zig_tfhe_jax/models/scheduler.py) and as a
 // small CLI that consumes Bristol-fashion circuit files.
 //
 // Build: make -C native/circuit   (produces libcircuit_scheduler.so + cli)
 
 #include <algorithm>
+#include <cctype>
+#include <climits>
 #include <cstdint>
+#include <cstdlib>
 #include <exception>
 #include <cstdio>
 #include <cstring>
@@ -31,7 +34,7 @@
 namespace tfhe_sched {
 
 // Gate opcodes.  Two-input bootstrapped gates match
-// zig_tfhe_tpu.models.gates.GATE_NAMES order; >= 100 are runtime-special.
+// zig_tfhe_jax.models.gates.GATE_NAMES order; >= 100 are runtime-special.
 enum Op : int32_t {
   NAND = 0, OR = 1, AND = 2, XOR = 3, XNOR = 4, NOR = 5,
   ANDNY = 6, ANDYN = 7, ORNY = 8, ORYN = 9,
@@ -99,20 +102,57 @@ int32_t circuit_add_gate(Circuit* c, int32_t op, int32_t in0, int32_t in1,
 void circuit_mark_input(Circuit* c, int32_t wire) { c->inputs.push_back(wire); }
 void circuit_mark_output(Circuit* c, int32_t wire) { c->outputs.push_back(wire); }
 
+// Whitespace-separated tokens of a NUL-terminated buffer, read with the C
+// library rather than iostreams: this library is loaded into processes
+// that may carry another C++ runtime, and a string stream touches the
+// runtime's locale state (a statically linked runtime in the .so then
+// crashes inside the embedding process).
+struct Tokens {
+  const char* p;
+
+  void skip_space() {
+    while (*p && std::isspace(static_cast<unsigned char>(*p))) ++p;
+  }
+  bool int64(int64_t& v) {
+    skip_space();
+    char* end = nullptr;
+    long long x = std::strtoll(p, &end, 10);
+    if (end == p) return false;
+    p = end;
+    v = x;
+    return true;
+  }
+  bool int32(int32_t& v) {
+    int64_t x = 0;
+    if (!int64(x) || x < INT32_MIN || x > INT32_MAX) return false;
+    v = static_cast<int32_t>(x);
+    return true;
+  }
+  bool word(std::string& w) {
+    skip_space();
+    const char* q = p;
+    while (*q && !std::isspace(static_cast<unsigned char>(*q))) ++q;
+    if (q == p) return false;
+    w.assign(p, q);
+    p = q;
+    return true;
+  }
+};
+
 // Bristol-fashion parser ("old" Bristol format):
 //   line 1: <n_gates> <n_wires>
 //   line 2: <n_in1> <n_in2> <n_out>   (wires 0.. are inputs, last are outputs)
 //   gates:  <n_in> <n_out> <in...> <out> <OP>
 Circuit* circuit_parse_bristol(const char* text) {
   auto* c = new Circuit();
-  std::istringstream in(text);
+  Tokens in{text};
   int64_t n_gates = 0, n_wires = 0;
-  if (!(in >> n_gates >> n_wires)) {
+  if (!(in.int64(n_gates) && in.int64(n_wires))) {
     c->error = "bad header";
     return c;
   }
   int64_t n_in1 = 0, n_in2 = 0, n_out = 0;
-  if (!(in >> n_in1 >> n_in2 >> n_out)) {
+  if (!(in.int64(n_in1) && in.int64(n_in2) && in.int64(n_out))) {
     c->error = "bad io header";
     return c;
   }
@@ -142,8 +182,8 @@ Circuit* circuit_parse_bristol(const char* text) {
       {"COPY", COPY}, {"EQW", COPY},  {"MUX", MUX},
   };
   for (int64_t gi = 0; gi < n_gates; ++gi) {
-    int n_gin = 0, n_gout = 0;
-    if (!(in >> n_gin >> n_gout)) {
+    int32_t n_gin = 0, n_gout = 0;
+    if (!(in.int32(n_gin) && in.int32(n_gout))) {
       c->error = "truncated gate list at gate " + std::to_string(gi);
       return c;
     }
@@ -155,10 +195,14 @@ Circuit* circuit_parse_bristol(const char* text) {
       return c;
     }
     std::vector<int32_t> gin(n_gin), gout(n_gout);
-    for (auto& w : gin) in >> w;
-    for (auto& w : gout) in >> w;
     std::string opname;
-    in >> opname;
+    bool ok = true;
+    for (auto& w : gin) ok = ok && in.int32(w);
+    for (auto& w : gout) ok = ok && in.int32(w);
+    if (!ok || !in.word(opname)) {
+      c->error = "truncated gate at gate " + std::to_string(gi);
+      return c;
+    }
     auto it = ops.find(opname);
     if (it == ops.end() || n_gout != 1) {
       c->error = "unsupported gate '" + opname + "'";

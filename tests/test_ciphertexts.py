@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import params as P, tlwe, trlwe, trgsw, key as K
-from zig_tfhe_tpu.ops.blind_rotate import cmux, external_product
-from zig_tfhe_tpu.ops import poly
+from zig_tfhe_jax import params as P, tlwe, trlwe, trgsw, key as K
+from zig_tfhe_jax.ops.blind_rotate import cmux, external_product
+from zig_tfhe_jax.ops import poly
 
 
 def test_tlwe_roundtrip_exact(tiny, tiny_sk, rng):
@@ -109,7 +109,7 @@ def test_trgsw_cmux(tiny, tiny_sk, rng):
 def test_trgsw_decomposition_reconstruct(tiny, tiny_sk, rng):
     # decompose then recombine with gadget values h_i: decrypts unchanged
     # (trgsw.zig:505-576)
-    from zig_tfhe_tpu.ops.blind_rotate import _decompose_to_rows
+    from zig_tfhe_jax.ops.blind_rotate import _decompose_to_rows
     bits = jnp.asarray(rng.integers(0, 2, (1, tiny.N)).astype(bool))
     ct = trlwe.encrypt_bool(jax.random.key(9), bits, 0.0, tiny_sk.key_lv1)
     rows = np.asarray(_decompose_to_rows(ct, tiny)).astype(np.int64)  # [1, 2L, N]

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import circuits as C
-from zig_tfhe_tpu.models import gates as G
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import circuits as C
+from zig_tfhe_jax.models import gates as G
 
 
 def test_bit_codecs():

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu.ops.decomposition import gadget_decompose, ks_decompose
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax.ops.decomposition import gadget_decompose, ks_decompose
 
 
 def _reference_gadget(x, p):

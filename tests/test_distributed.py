@@ -2,7 +2,7 @@
 
 Unlike tests/test_sharding.py (virtual devices in one process), this
 spawns two real OS processes connected via jax.distributed, broadcasts
-the serialized CloudKey through the filesystem (the DCN stand-in), forms
+the serialized CloudKey through the filesystem (the cross-host broadcast stand-in), forms
 one global 8-device mesh (2 processes x 4 CPU devices), and checks that
 batched gates over a globally batch-sharded array decrypt bit-exactly on
 BOTH processes.  This is the path a pod-scale deployment uses; the

@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe, trgsw, trlwe
-from zig_tfhe_tpu.ops import ntt as NTT
-from zig_tfhe_tpu.ops.decomposition import gadget_decompose, gadget_offset
-from zig_tfhe_tpu.utils import serialization as S
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe, trgsw, trlwe
+from zig_tfhe_jax.ops import ntt as NTT
+from zig_tfhe_jax.ops.decomposition import gadget_decompose, gadget_offset
+from zig_tfhe_jax.utils import serialization as S
 
 
 def test_default_engine_gadget_selection():
@@ -109,7 +109,7 @@ def test_encrypt_gadget_rows_phases(tiny, tiny_sk):
 def test_engine_gadget_truth_table(tiny):
     """End-to-end gates at an explicit engine base (tiny margins absorb
     the ±2^15 truncation; alpha=0 keeps decrypts exact)."""
-    from zig_tfhe_tpu.models import gates as G
+    from zig_tfhe_jax.models import gates as G
 
     sk = K.SecretKey.generate(jax.random.key(50), tiny)
     ck = K.CloudKey.generate(jax.random.key(51), sk, tiny,
@@ -161,7 +161,7 @@ def test_stale_key_prime_count_raises(tiny, tiny_ck):
     import dataclasses
     import jax.numpy as jnp
     import pytest
-    from zig_tfhe_tpu.ops.blind_rotate import blind_rotate
+    from zig_tfhe_jax.ops.blind_rotate import blind_rotate
 
     bad = dataclasses.replace(
         tiny_ck, bsk_ntt=jnp.concatenate(

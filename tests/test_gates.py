@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
 
 from tests.conftest import TRUTH_TABLES
 
@@ -77,7 +77,7 @@ def test_mux_both_variants(tiny, tiny_sk, tiny_ck):
 
 def test_bootstrap_refreshes_noise(tiny, tiny_sk, tiny_ck):
     # bootstrap output phase is within margin of +-1/8 exactly (alpha=0 pipeline)
-    from zig_tfhe_tpu import bootstrap as BS
+    from zig_tfhe_jax import bootstrap as BS
     bits = jnp.asarray([True, False])
     ct = tlwe.encrypt_bool(jax.random.key(41), bits, 0.0, tiny_sk.key_lv0)
     out = BS.bootstrap(ct, tiny_ck)

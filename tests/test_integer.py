@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu.models import integer as I
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax.models import integer as I
 
 import os
 
@@ -223,8 +223,8 @@ def test_fheuint_encrypted_amount_shifts(ip, isk, ick):
 def test_gates_integer_bridge(ip, isk, ick):
     """Radix digits <-> boolean gate bits round-trip, and composition
     with the gate layer (bitwise AND through models/gates)."""
-    from zig_tfhe_tpu import tlwe
-    from zig_tfhe_tpu.models import gates as G
+    from zig_tfhe_jax import tlwe
+    from zig_tfhe_jax.models import gates as G
     v, w = 45, 19                                 # 6 bits, 2 digits
     ca = I.encrypt_radix(jax.random.key(260), v, 2, 0.0, isk.key_lv0)
     bits = I.to_bools(ca, ick)                    # [6, n0+1], +-1/8 codec
@@ -322,7 +322,7 @@ def test_scheduler_integer_roundtrip(ip, isk, ick):
     """FheUint -> bits (bridge) -> native C++-scheduled boolean circuit
     (3-bit ripple adder) -> bits -> FheUint: all three subsystems under
     one key."""
-    from zig_tfhe_tpu.models import scheduler as S
+    from zig_tfhe_jax.models import scheduler as S
     c = S.Circuit()
     a_bits = [c.input() for _ in range(3)]
     b_bits = [c.input() for _ in range(3)]

@@ -13,9 +13,9 @@ import jax
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu.models import integer as I
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax.models import integer as I
 
 slow = pytest.mark.skipif(
     os.environ.get("ZTFHE_SLOW_TESTS", "") in ("", "0"),

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import lut as L
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import lut as L
 
 
 def test_div_round():
@@ -92,7 +92,7 @@ def test_generate_lookup_table_full(tiny, tiny_sk, tiny_ck):
 def test_bootstrap_lut_m16_multilimb_digits():
     """m=16 LUT at TEST_TINY_UINT (bgbit=11 -> 2-limb digit path, basebit=4)."""
     import jax
-    from zig_tfhe_tpu import params as P, key as K
+    from zig_tfhe_jax import params as P, key as K
     p = P.TEST_TINY_UINT
     assert p.digit_limbs == 2
     sk = K.SecretKey.generate(jax.random.key(200), p)
@@ -142,7 +142,7 @@ def test_lookup_table_from_poly_get_poly(tiny, tiny_sk, tiny_ck):
 
 def test_bootstrap_strategy_protocol(tiny, tiny_sk, tiny_ck):
     # bootstrap.zig:30-52: strategy interface + default
-    from zig_tfhe_tpu import bootstrap as B
+    from zig_tfhe_jax import bootstrap as B
 
     strat = B.default_bootstrap()
     assert strat.name == "vanilla"
@@ -197,8 +197,8 @@ def test_bootstrap_multi_lut_matches_individual():
     12-bit gadget is out of margin at m=8 (the same reason the integer
     layer, multi-value's consumer, runs on the uint sets)."""
     import jax as _jax
-    from zig_tfhe_tpu import key as _K
-    from zig_tfhe_tpu import params as _P
+    from zig_tfhe_jax import key as _K
+    from zig_tfhe_jax import params as _P
 
     p = _P.TEST_TINY_UINT
     sk = _K.SecretKey.generate(_jax.random.key(71), p)
@@ -228,9 +228,9 @@ def test_bootstrap_lut_radix_exact():
     """Tree PBS (mid layer -> packing key switch -> select rotation) must
     be exact at alpha=0: TEST_TINY_UINT, m=64 (m_hi=4, delta=N/4), an
     affine LUT probed across all digit-boundary cases."""
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(7), params)
@@ -256,10 +256,10 @@ def test_bootstrap_lut_radix_exact():
 def test_packing_key_switch_phase():
     """pack_tlwes_blocks places sample k's message on the coefficient
     block centered at k*delta (exact at alpha=0)."""
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu import trlwe
-    from zig_tfhe_tpu.ops.packing_keyswitch import (gen_packing_ksk,
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax import trlwe
+    from zig_tfhe_jax.ops.packing_keyswitch import (gen_packing_ksk,
                                                     pack_tlwes_blocks)
 
     params = P.TEST_TINY_UINT
@@ -295,9 +295,9 @@ def test_bootstrap_lut_radix_random_f_exact():
     factoring fallback in _factor_lut_cached — steep tables whose wrap
     jumps exceed +-m are unrepresentable in the centered mod-2m
     construction and previously could not factor at all."""
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(30), params)
@@ -317,9 +317,9 @@ def test_bootstrap_lut_radix_random_f_exact():
 def test_bootstrap_lut_bivariate_exact():
     """Bivariate PBS (tfhe-rs-style): f2(x, y) on two modulus-16 inputs
     via the radix route — exact at alpha=0 for mul and a random table."""
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(50), params)
@@ -346,10 +346,10 @@ def test_radix_and_tree_pbs_input_validation():
     """Error paths fail fast with actionable messages (non-power-of-two
     moduli, hypothesis overflow, custom-gadget packing keys on the cloud
     key)."""
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.models import integer as I
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.models import integer as I
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(70), params)
@@ -384,9 +384,9 @@ def test_tree_pbs_interleaved_select_matches_per_family():
     the interleave guard 2*n_blocks*64 <= N."""
     import os
 
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(70), params)

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.utils import serialization as S
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.utils import serialization as S
 
 
 def _gate_roundtrip(params, group, seed=0):
@@ -118,7 +118,7 @@ def test_group4_matches_group1_truth_table(tiny):
 
 def test_group3_ragged_n0():
     """n0=8 with group=3 -> G=3 with one zero-padded key bit."""
-    from zig_tfhe_tpu import params as P
+    from zig_tfhe_jax import params as P
     expected = _gate_roundtrip(P.TEST_TINY, group=1, seed=30)
     assert _gate_roundtrip(P.TEST_TINY, group=3, seed=30) == expected
 
@@ -161,7 +161,7 @@ def test_rotate_combine_wide_matches_narrow():
     per-term combine reduction) must agree with the reduced/pairwise
     path exactly mod every plan prime, including at the bound-stressing
     extremes (residues at +-(p/2 + 384), the barrett output envelope)."""
-    from zig_tfhe_tpu.ops import ntt as NTT
+    from zig_tfhe_jax.ops import ntt as NTT
 
     plan = NTT.make_plan(1024, 45)          # the production 3-prime plan
     rng = np.random.default_rng(0)

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from zig_tfhe_tpu import params as P
+from zig_tfhe_jax import params as P
 
 
 def test_all_sets_sane():
@@ -57,7 +57,7 @@ def test_t64_set_measurement_tuned_constants():
     key-amplified a-truncation alone was sigma 2^-8.2 (measured 0.72).
     The pinned constants deliver the measured m=4..32 all-exact
     single-shot envelope — guard them."""
-    from zig_tfhe_tpu.ops import ntt as N
+    from zig_tfhe_jax.ops import ntt as N
 
     p = P.SECURITY_128_BIT_T64
     assert (p.n0, p.N, p.torus_bits) == (768, 2048, 64)

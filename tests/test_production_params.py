@@ -3,9 +3,9 @@
 The regular suite exercises full pipelines at TEST_TINY (alpha=0, exact)
 plus statistical paths at tiny scale; these tests run the real 80-bit and
 uint4 configurations end-to-end.  NOTE: tests/conftest.py pins the CPU
-backend for the whole pytest process, so under pytest these always run on
-CPU (minutes); the TPU benches (bench.py, bench_lut.py) cover the same
-configurations on hardware.  Opt in with ZTFHE_SLOW_TESTS=1.
+backend unless JAX_PLATFORMS names another, so under a plain pytest run
+these take minutes; bench.py and bench_lut.py cover the same
+configurations on the GPU.  Opt in with ZTFHE_SLOW_TESTS=1.
 """
 
 import os
@@ -15,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.models import lut as L
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.models import lut as L
 
 slow = pytest.mark.skipif(
     os.environ.get("ZTFHE_SLOW_TESTS", "") in ("", "0"),
@@ -113,7 +113,7 @@ def test_uint4_integer_compare_real_noise():
     (3-term borrow rounds, the eq AND-reduce) survive real uint4 noise.
     2-digit values -> sub/lt (2 rotations) + eq incl. the sqrt(2)-bit
     reduce, batched over 8 value pairs."""
-    from zig_tfhe_tpu.models import integer as I
+    from zig_tfhe_jax.models import integer as I
     params = P.SECURITY_UINT4
     sk = K.SecretKey.generate(jax.random.key(40), params)
     ck = K.CloudKey.generate(jax.random.key(41), sk, params)
@@ -139,8 +139,8 @@ def test_uint4_gates_integer_bridge_real_noise():
     at the +-1/8 gate codec (full-output LUTs) and return through
     constant-testvec sign bootstraps — a different output-noise path
     from the message-codec LUTs, pinned here end-to-end."""
-    from zig_tfhe_tpu import tlwe
-    from zig_tfhe_tpu.models import integer as I
+    from zig_tfhe_jax import tlwe
+    from zig_tfhe_jax.models import integer as I
     params = P.SECURITY_UINT4
     sk = K.SecretKey.generate(jax.random.key(50), params)
     ck = K.CloudKey.generate(jax.random.key(51), sk, params)
@@ -161,7 +161,7 @@ def test_uint4_integer_mul_real_noise():
     """Full radix multiply at real uint4 noise: exercises the bit-plane
     extraction, the w = x + 8*b packing LUTs, and both carry
     normalizations (the integer layer's deepest per-digit pipeline)."""
-    from zig_tfhe_tpu.models import integer as I
+    from zig_tfhe_jax.models import integer as I
     params = P.SECURITY_UINT4
     sk = K.SecretKey.generate(jax.random.key(70), params)
     ck = K.CloudKey.generate(jax.random.key(71), sk, params)
@@ -179,7 +179,7 @@ def test_uint4_encrypted_amount_shift_real_noise():
     """Barrel shifter at real uint4 noise: its packed mux inputs carry
     up to 3 fresh PBS outputs per level (NOISE.md §10), repeated for
     every amount bit — the deepest chain in the integer layer."""
-    from zig_tfhe_tpu.models import integer as I
+    from zig_tfhe_jax.models import integer as I
     params = P.SECURITY_UINT4
     sk = K.SecretKey.generate(jax.random.key(60), params)
     ck = K.CloudKey.generate(jax.random.key(61), sk, params)
@@ -286,7 +286,7 @@ def test_uint_radix_lut_real_noise(pname):
     0.29 (envelope pinned above) — with this route every reference
     parameter set is production-usable.  Measured at these seeds: 1.000
     for all four."""
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.PARAMS_BY_NAME[pname]
     m = 1 << params.security_bits
@@ -310,7 +310,7 @@ def test_uint4_digit_mul_tree_real_noise():
     64 digit pairs exact (the select rotation consumes a NOISY packed
     testvec — mid-layer PBS noise x sqrt(delta) spread — so this pins
     the tree path's real-noise budget end-to-end)."""
-    from zig_tfhe_tpu.models import integer as I
+    from zig_tfhe_jax.models import integer as I
     params = P.SECURITY_UINT4
     sk = K.SecretKey.generate(jax.random.key(80), params)
     ck = K.CloudKey.generate(jax.random.key(81), sk, params,

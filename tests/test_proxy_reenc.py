@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K, params as P, tlwe
-from zig_tfhe_tpu.models import proxy_reenc as PR
+from zig_tfhe_jax import key as K, params as P, tlwe
+from zig_tfhe_jax.models import proxy_reenc as PR
 
 
 @pytest.fixture(scope="module")

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import circuits as C
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.models import scheduler as S
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import circuits as C
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.models import scheduler as S
 
 
 def _full_adder_circuit():
@@ -279,7 +279,7 @@ def test_bristol_multiplier_netlist_encrypted(tiny, tiny_sk, tiny_ck):
     the scheduler-scale Bristol corpus, VERDICT r3 #7) evaluates exactly
     under encryption at w=8 (491 gates, ~30 levels); the plain evaluator
     is the oracle."""
-    from zig_tfhe_tpu.models.netlists import bristol_multiplier, \
+    from zig_tfhe_jax.models.netlists import bristol_multiplier, \
         eval_bristol_plain
 
     w = 8
@@ -303,7 +303,7 @@ def test_chunked_levels_match_unchunked(tiny, tiny_sk, tiny_ck, monkeypatch):
     tiny chunks (several dispatches per level, B > chunk) must decrypt
     identically to the unchunked evaluation.  Guards the round-4 fix for
     wide levels running one giant past-the-knee rotation (ROADMAP)."""
-    from zig_tfhe_tpu.models.netlists import bristol_multiplier
+    from zig_tfhe_jax.models.netlists import bristol_multiplier
 
     plan = S.parse_bristol(bristol_multiplier(4))
     rng = np.random.default_rng(5)
@@ -332,10 +332,10 @@ def test_engine_aware_knee_defaults(monkeypatch):
     """The dispatch knees follow the engine: 2048 rotation lanes on the
     32-bit path, 512 on the split engine (round-5 B sweeps); env
     overrides win."""
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.models import lut as L
-    from zig_tfhe_tpu.models.gates import _pad_policy
-    from zig_tfhe_tpu.models.scheduler import _level_chunk_lanes
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.models import lut as L
+    from zig_tfhe_jax.models.gates import _pad_policy
+    from zig_tfhe_jax.models.scheduler import _level_chunk_lanes
 
     monkeypatch.delenv("ZTFHE_LEVEL_CHUNK", raising=False)
     assert _level_chunk_lanes(P.SECURITY_128_BIT) == 2048
@@ -360,8 +360,8 @@ def test_evaluate_full_adder_split64():
     split-ring circuit evaluates end-to-end with exact decrypts — before
     the fix the int32 arena silently downcast the int64 inputs and the
     first level died in blind_rotate's width check."""
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
 
     ps = P.TEST_TINY_SPLIT
     sk = K.SecretKey.generate(jax.random.key(7), ps)

@@ -13,8 +13,8 @@ import math
 
 import pytest
 
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu.utils.security import (LweEstimate, estimate_lwe,
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax.utils.security import (LweEstimate, estimate_lwe,
                                          estimate_params, log2_delta)
 
 
@@ -103,7 +103,7 @@ def test_dual_cross_check_within_one_bit_of_primal():
     """The distinguishing-dual cross-check (estimate_dual_lwe) must land
     within ~1 bit of primal on every in-tree instance family — the
     quantified version of the module's scope claim."""
-    from zig_tfhe_tpu.utils.security import estimate_dual_lwe
+    from zig_tfhe_jax.utils.security import estimate_dual_lwe
 
     for n, q, s in [(1024, 32, 2e-8), (700, 32, 2e-5),
                     (2048, 64, 2 ** -49), (768, 64, 2 ** -17)]:
@@ -121,7 +121,7 @@ def test_v2_boolean_set_clears_128_gate_bits():
     AND the dual cross-check, with >= 2 bits of margin; the reference-
     parity 128bit set stays bit-identical to params.zig:350-378 (its
     documented 126.4-bit lv1 shortfall is the reason V2 exists)."""
-    from zig_tfhe_tpu.utils.security import estimate_dual_lwe
+    from zig_tfhe_jax.utils.security import estimate_dual_lwe
 
     v2 = P.SECURITY_128_BIT_V2
     assert v2.tlwe_lv0.n == P.SECURITY_128_BIT.tlwe_lv0.n

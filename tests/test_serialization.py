@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu import key as K, tlwe
-from zig_tfhe_tpu.models import proxy_reenc as PR
-from zig_tfhe_tpu.utils import serialization as S
+from zig_tfhe_jax import key as K, tlwe
+from zig_tfhe_jax.models import proxy_reenc as PR
+from zig_tfhe_jax.utils import serialization as S
 
 
 def test_secret_key_roundtrip(tmp_path, tiny, tiny_sk):
@@ -25,7 +25,7 @@ def test_cloud_key_roundtrip_and_use(tmp_path, tiny, tiny_sk, tiny_ck):
     assert ck2.params is tiny
     assert np.array_equal(np.asarray(ck2.ksk1), np.asarray(tiny_ck.ksk1))
     # loaded key still evaluates gates correctly
-    from zig_tfhe_tpu.models import gates as G
+    from zig_tfhe_jax.models import gates as G
     a = tlwe.encrypt_bool(jax.random.key(90), jnp.asarray([True, False]), 0.0,
                           tiny_sk.key_lv0)
     b = tlwe.encrypt_bool(jax.random.key(91), jnp.asarray([True, True]), 0.0,
@@ -65,7 +65,7 @@ def test_custom_params_roundtrip(tmp_path, tiny, tiny_sk):
     via the embedded manifest, not by stock-name lookup."""
     import dataclasses
 
-    from zig_tfhe_tpu import params as P
+    from zig_tfhe_jax import params as P
 
     custom = dataclasses.replace(
         tiny, tlwe_lv0=P.TlweParams(n=tiny.n0, alpha=1e-9),
@@ -128,10 +128,10 @@ def test_packing_ksk_roundtrip(tmp_path):
     key drives the radix tree-PBS to the same exact result."""
     import numpy as np
 
-    from zig_tfhe_tpu import key as K
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.models import lut as L
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import key as K
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.models import lut as L
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(7), params)

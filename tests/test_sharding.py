@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as Pspec
 
-from zig_tfhe_tpu import key as K, tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.parallel import mesh as M
+from zig_tfhe_jax import key as K, tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.parallel import mesh as M
 
 
 @pytest.fixture(scope="module")
@@ -85,8 +85,8 @@ def test_sharded_integer_ops_bit_exact(mesh8):
     """The integer layer's radix ops are batch-first like gates: a
     data-sharded batch must be BIT-EXACT vs single-device (the bucket
     padding keeps the flattened batch divisible across the axis)."""
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.models import integer as I
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.models import integer as I
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(300), params)
@@ -119,7 +119,7 @@ def test_sharded_split_gates_bit_exact(mesh8):
     BIT-EXACT vs single-device (VERDICT r4 #6: the scan/gather/fold
     pipeline of ops/split_ring.py had no multi-chip coverage).  Covers
     the hi-plane int32 scan (drop=32 default) across placements."""
-    from zig_tfhe_tpu import params as P
+    from zig_tfhe_jax import params as P
 
     params = P.TEST_TINY_SPLIT
     sk = K.SecretKey.generate(jax.random.key(500), params)
@@ -156,9 +156,9 @@ def test_sharded_radix_lut_bit_exact(mesh8):
     select rotation) under a data-sharded batch must be BIT-EXACT vs
     single-device — the whole route is batch-leading ops, so sharding
     the lo/hi digit batches shards every stage."""
-    from zig_tfhe_tpu import params as P
-    from zig_tfhe_tpu.models import lut as L
-    from zig_tfhe_tpu.ops.packing_keyswitch import gen_packing_ksk
+    from zig_tfhe_jax import params as P
+    from zig_tfhe_jax.models import lut as L
+    from zig_tfhe_jax.ops.packing_keyswitch import gen_packing_ksk
 
     params = P.TEST_TINY_UINT
     sk = K.SecretKey.generate(jax.random.key(400), params)

@@ -15,13 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.ops import ntt as NTT
-from zig_tfhe_tpu.ops import split_ring as SR
-from zig_tfhe_tpu.ops.poly import negacyclic_rotate
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.ops import ntt as NTT
+from zig_tfhe_jax.ops import split_ring as SR
+from zig_tfhe_jax.ops.poly import negacyclic_rotate
 
 pytestmark = pytest.mark.skipif(
     jnp.zeros((), jnp.int64).dtype != jnp.int64,
@@ -220,7 +220,7 @@ def test_kogge_stone_adder_split(sk, ck):
     """Encrypted 16-bit addition end-to-end on the 64-bit N=2048 set
     (regression: encrypt_bits once ignored params.torus_bits and the
     adder silently decrypted garbage)."""
-    from zig_tfhe_tpu.models import circuits
+    from zig_tfhe_jax.models import circuits
 
     a = circuits.encrypt_bits(jax.random.key(2), 402, 16, sk, PS)
     assert a.dtype == jnp.int64
@@ -231,7 +231,7 @@ def test_kogge_stone_adder_split(sk, ck):
 
 def test_width_mismatch_raises(ck):
     """int32 ciphertexts into a 64-bit pipeline fail loudly."""
-    from zig_tfhe_tpu.ops.blind_rotate import blind_rotate
+    from zig_tfhe_jax.ops.blind_rotate import blind_rotate
 
     bad = jnp.zeros((2, PS.n0 + 1), jnp.int32)
     with pytest.raises(TypeError, match="torus carrier"):
@@ -247,7 +247,7 @@ def test_single_shot_lut_m64_split(sk, ck):
     (ops/decomposition.py center=True): with the biased floor-form
     remainder the a-key convolution shifts phases by ~2^-7 of the torus
     and 48/64 of these bins decode wrong."""
-    from zig_tfhe_tpu.models import lut as L
+    from zig_tfhe_jax.models import lut as L
 
     m = 64
     gen = L.Generator.new(m, PS)
@@ -265,7 +265,7 @@ def test_single_shot_lut_m64_split(sk, ck):
 def test_integer_layer_split(sk, ck):
     """The radix integer layer (multi-value bootstraps included) runs on
     the 64-bit split set: FheUint add/mul/compare exact at alpha=0."""
-    from zig_tfhe_tpu.models.integer import FheUint, decrypt_radix
+    from zig_tfhe_jax.models.integer import FheUint, decrypt_radix
 
     x = FheUint.encrypt(jax.random.key(1), 45, 2, sk, ck)
     assert x.digits.dtype == jnp.int64
@@ -281,7 +281,7 @@ def test_signed_integer_layer_split(sk, ck):
     exact at alpha=0 — the signed layer rides the same width-general
     radix machinery as FheUint, but its sign handling (top-digit LUTs)
     has its own tables worth pinning at this width."""
-    from zig_tfhe_tpu.models.integer import FheInt
+    from zig_tfhe_jax.models.integer import FheInt
 
     x = FheInt.encrypt(jax.random.key(71), -13, 2, sk, ck, alpha=0.0)
     y = FheInt.encrypt(jax.random.key(72), 9, 2, sk, ck, alpha=0.0)
@@ -312,7 +312,7 @@ def test_seeded_ciphertext_64bit(sk, ck):
 def test_split_cloud_key_serialization_roundtrip(tmp_path, sk, ck):
     """The 6-axis multi-bit split BSK and 64-bit KSK survive save/load
     and the loaded key still evaluates gates exactly."""
-    from zig_tfhe_tpu.utils import serialization as S
+    from zig_tfhe_jax.utils import serialization as S
 
     p = tmp_path / "ck_split.npz"
     S.save_cloud_key(p, ck)
@@ -355,7 +355,7 @@ def test_gates_integer_bridge_split(sk, ck):
     tables via torus_constant_w; the 32-bit torus_constant would encode
     2^29-scale constants into int64 tables — a latent width bug fixed in
     the radix-spec refactor)."""
-    from zig_tfhe_tpu.models.integer import (decrypt_radix, encrypt_radix,
+    from zig_tfhe_jax.models.integer import (decrypt_radix, encrypt_radix,
                                              from_bools, to_bools)
 
     vals = np.array([45, 7, 63])
@@ -378,7 +378,7 @@ def test_hi32_scan_bit_exact_vs_generic(sk, ck):
     drop (ZTFHE_SPLIT_HI32=0 forces the generic path)."""
     import os
 
-    from zig_tfhe_tpu.ops.split_ring import _hi32_viable, blind_rotate_split
+    from zig_tfhe_jax.ops.split_ring import _hi32_viable, blind_rotate_split
 
     assert _hi32_viable(PS, ck.bsk_ntt_drop, ck.bsk_bgbit, ck.bsk_levels)
     ct = tlwe.encrypt_message(jax.random.key(21), jnp.arange(8), 16, 0.0,
@@ -399,7 +399,7 @@ def test_tv_lo_zero_fast_start_bit_exact(sk, ck):
     rotation, ops/split_ring.py) must be BIT-exact vs the generic start
     whenever the testvec's low words are zero — true for the +-1/8 gate
     testvec (2^61 at the 64-bit torus, key.py:gen_testvec)."""
-    from zig_tfhe_tpu.ops.split_ring import blind_rotate_split
+    from zig_tfhe_jax.ops.split_ring import blind_rotate_split
 
     tv = jnp.asarray(ck.testvec)
     assert not np.any(np.asarray(tv) & 0xFFFFFFFF)
@@ -417,7 +417,7 @@ def test_packing_key_built_on_64bit_sets(sk, ck):
     the width-64 packing key switch (the exact m >= 64 radix door,
     VERDICT r4 #1).  The default cloud key now carries an int64 packing
     key at the (8, 3) width-64 gadget."""
-    from zig_tfhe_tpu.ops.packing_keyswitch import default_packing_gadget
+    from zig_tfhe_jax.ops.packing_keyswitch import default_packing_gadget
 
     assert default_packing_gadget(PS) == (8, 3)
     assert ck.pksk is not None
@@ -433,7 +433,7 @@ def test_radix_lut_m64_m256_split(sk, ck):
     set's gadget and take dedicated mid lanes (models/lut.py:
     mid_norm1_budget); identity-grade tables ride the shared factored
     rotation — both must land exactly at alpha=0."""
-    from zig_tfhe_tpu.models import lut as L
+    from zig_tfhe_jax.models import lut as L
 
     for m, f in ((64, lambda x: (3 * x + 7) % 64),
                  (256, lambda x: (57 * x + 19) % 256)):

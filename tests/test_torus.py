@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu.utils.torus import (
+from zig_tfhe_jax.utils.torus import (
     f64_to_torus, i32_to_i8_limbs, torus_to_f64, to_i32,
 )
 

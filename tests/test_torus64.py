@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
-from zig_tfhe_tpu.ops import ntt as NTT
-from zig_tfhe_tpu.utils.torus import (require_width, to_carrier,
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
+from zig_tfhe_jax.ops import ntt as NTT
+from zig_tfhe_jax.utils.torus import (require_width, to_carrier,
                                       torus_constant_w)
 
 pytestmark = pytest.mark.skipif(
@@ -68,7 +68,7 @@ def test_ntt64_roundtrip_and_binary_polymul_oracle(p64):
 
     # negacyclic a*s mod 2^64 vs big-int schoolbook (fft.zig:695-714 style)
     s = rng.integers(0, 2, N).astype(np.int64)
-    from zig_tfhe_tpu.ops.poly import negacyclic_polymul_binary
+    from zig_tfhe_jax.ops.poly import negacyclic_polymul_binary
     got = np.asarray(negacyclic_polymul_binary(jnp.asarray(a),
                                                jnp.asarray(s)))
     ref = np.zeros((2, N), dtype=object)
@@ -147,7 +147,7 @@ def test_heterogeneous_gates_and_mux_64(p64, sk64, ck64):
 
 
 def test_ciphertext_serialization_64(tmp_path, p64, sk64):
-    from zig_tfhe_tpu.utils import serialization as S
+    from zig_tfhe_jax.utils import serialization as S
     bits = jnp.asarray([True, False, True])
     ct = tlwe.encrypt_bool(jax.random.key(11), bits, 0.0, sk64.key_lv0,
                            width=64)

@@ -31,15 +31,13 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from zig_tfhe_tpu import key as K  # noqa: E402
-from zig_tfhe_tpu import params as P  # noqa: E402
-from zig_tfhe_tpu.models import lut as L  # noqa: E402
+from zig_tfhe_jax import key as K  # noqa: E402
+from zig_tfhe_jax import params as P  # noqa: E402
+from zig_tfhe_jax.models import lut as L  # noqa: E402
 
 
 def main():
@@ -65,7 +63,7 @@ def main():
     if os.environ.get("BENCH_BGBIT"):
         kw["engine_bgbit"] = int(os.environ["BENCH_BGBIT"])
     ck = K.CloudKey.generate(jax.random.key(1), sk, params, **kw)
-    np.asarray(jax.tree_util.tree_leaves(ck)[1].ravel()[:1])
+    jax.block_until_ready(ck)
 
     pbs = jax.jit(lambda c, tv, k: L.bootstrap_lut(c, tv, k))
     rng = np.random.default_rng(3)

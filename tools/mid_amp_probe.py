@@ -34,17 +34,15 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe, trlwe
-from zig_tfhe_tpu.models import lut as L
-from zig_tfhe_tpu.ops.blind_rotate import blind_rotate
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe, trlwe
+from zig_tfhe_jax.models import lut as L
+from zig_tfhe_jax.ops.blind_rotate import blind_rotate
 
 
 def main():

@@ -27,15 +27,13 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from zig_tfhe_tpu import key as K
-from zig_tfhe_tpu import params as P
-from zig_tfhe_tpu import tlwe
-from zig_tfhe_tpu.models import gates as G
+from zig_tfhe_jax import key as K
+from zig_tfhe_jax import params as P
+from zig_tfhe_jax import tlwe
+from zig_tfhe_jax.models import gates as G
 
 MARGIN = 1 << 29  # distance from the +-1/8 decision phase to the boundary
 

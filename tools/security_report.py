@@ -16,8 +16,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from zig_tfhe_tpu import params as P                      # noqa: E402
-from zig_tfhe_tpu.utils.security import (estimate_dual_lwe,  # noqa: E402
+from zig_tfhe_jax import params as P                      # noqa: E402
+from zig_tfhe_jax.utils.security import (estimate_dual_lwe,  # noqa: E402
                                          estimate_params)
 
 

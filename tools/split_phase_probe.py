@@ -27,17 +27,15 @@ os.environ.setdefault(
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from zig_tfhe_tpu import key as K  # noqa: E402
-from zig_tfhe_tpu import params as P  # noqa: E402
-from zig_tfhe_tpu import tlwe  # noqa: E402
-from zig_tfhe_tpu.models import lut as L  # noqa: E402
+from zig_tfhe_jax import key as K  # noqa: E402
+from zig_tfhe_jax import params as P  # noqa: E402
+from zig_tfhe_jax import tlwe  # noqa: E402
+from zig_tfhe_jax.models import lut as L  # noqa: E402
 
 
 def main():
@@ -51,7 +49,7 @@ def main():
 
     sk = K.SecretKey.generate(jax.random.key(0), params)
     ck = K.CloudKey.generate(jax.random.key(1), sk, params)
-    np.asarray(jax.tree_util.tree_leaves(ck)[1].ravel()[:1])
+    jax.block_until_ready(ck)
 
     f = lambda x: (x * 3 + 1) % m
     gen = L.Generator.new(m, params)
@@ -63,8 +61,8 @@ def main():
 
     if stage == "br":
         def _br_to_lv1(c, tv, k):
-            from zig_tfhe_tpu import trlwe as _trlwe
-            from zig_tfhe_tpu.ops.blind_rotate import blind_rotate
+            from zig_tfhe_jax import trlwe as _trlwe
+            from zig_tfhe_jax.ops.blind_rotate import blind_rotate
             tr = blind_rotate(c, tv, k, k.params)
             return _trlwe.sample_extract(tr, 0)
         run = jax.jit(_br_to_lv1)
